@@ -76,7 +76,7 @@ def main() -> None:
 
     def measure(solver, partition):
         cfg = SolverConfig(robust="dcs", linear_solver=solver,
-                           dtype="float64", use_pallas="off")
+                           dtype="float64")
 
         def run(p):
             return lm_fixed_iters(p, sw0, edges, free, cfg, LM_ITERS,
@@ -166,7 +166,7 @@ def main() -> None:
         p0 = jnp.asarray(dirty.poses, jnp.float64)
         sw = jnp.ones((edges_s.num_edges,), jnp.float64)
         cfg = SolverConfig(robust="dcs", linear_solver="pcg",
-                           dtype="float64", use_pallas="off",
+                           dtype="float64",
                            pcg_rtol=1e-3, pcg_max_iters=100,
                            pcg_preconditioner="tridiag")
         ITERS = 10
@@ -213,7 +213,7 @@ def main() -> None:
                       "(no oracle: reference residuals are SE(2)-only; "
                       "exact 1-core Schur infeasible -- see "
                       "sphere_anchor docstring; inexact anchor makes "
-                      "the TPU ratio conservative)",
+                      "the device ratio conservative)",
         },
     }
     if "intel" in wanted:

@@ -9,8 +9,7 @@ figure per dataset with the ATE stamped on every cell:
     results/gallery/<DATASET>_grid.png
 
 Rows: method 0 (baseline) / method 1 (DCS).  Columns: outlier counts.
-Runs on whatever backend is active (TPU: ~15 min warm across the three
-datasets).
+Runs on whatever backend is active.
 
 Usage: python scripts/make_gallery.py [DATASET ...]  (default: INTEL CSAIL M3500)
 """

@@ -8,16 +8,16 @@ stream -- UCT top-k picks, Delta values, split decisions, assignment
 targets (method 3); UCT selection, Mahalanobis gate, 3-way split values,
 expand/assign actions (method 4) -- against the production managers'
 tagged logs (host or fused engines; host==fused is pinned separately in
-tests/ and tests_tpu/).
+tests/ and in ``chip_smoke.py``'s method-4 phase).
 
 Targets:
-  slice    -- the INTEL prefix slice used by the CPU/TPU method gates
+  slice    -- the INTEL prefix slice used by the CPU and GPU method gates
               (~300 nodes, 40 closures + 4 injected): runs the HOST
               managers here (f64 dense on CPU, exact), then diffs.
   intel50  -- INTEL + 50 outliers seed 42 (the canonical round config):
               runs the oracle twins here; production decisions are parsed
               from method3.log/method4.log files produced by CLI runs
-              (pass --m3-log/--m4-log, e.g. from the TPU fused engine).
+              (pass --m3-log/--m4-log, e.g. from the fused engine).
 
 Writes ``results/manager_oracle.json``.
 
@@ -207,7 +207,7 @@ def diff_m4(prod, oracle_dec, tau):
 # ---------------------------------------------------------------------------
 
 def intel_slice():
-    """Same construction as tests_tpu/test_tpu_methods.py::intel_slice."""
+    """Same construction as chip_smoke.intel_prefix_slice."""
     from slam_tpu.graph import PoseGraph
     from slam_tpu.io import g2o
 
@@ -314,7 +314,7 @@ def main() -> int:
             graph = intel50() if target == "intel50" else csail50()
             m3_log = opts.get("m3-log")
             m4_log = opts.get("m4-log")
-            engine = "fused-tpu-f32 (CLI logs)"
+            engine = "fused-f32 (CLI logs)"
         else:
             raise SystemExit(f"unknown target {target}")
 

@@ -6,7 +6,7 @@ LM iterations) per candidate per edge (``layer_manager.cpp:602-654``,
 ``simple_layer_manager.cpp:567-622``), fanned out with ``std::async`` over
 top-k candidates (``layer_manager.cpp:379-385``).
 
-TPU-native replacement: layers become a *batch axis*.  One jitted ``vmap``
+Accelerator replacement: layers become a *batch axis*.  One jitted ``vmap``
 over (poses, edge-activity-mask) pairs evaluates every candidate in a single
 device call -- no threads, no problem rebuilding, no recompilation (the mask
 changes as data, never the shapes).

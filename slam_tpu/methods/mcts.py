@@ -1,13 +1,13 @@
 """Method 4: MCTS layer tree (SimpleLayerManagerV2).
 
-Behavioral port of ``/root/reference/DCS-ceres/src/simple_layer_manager.cpp``:
+Behavioral port of ``DCS-ceres/src/simple_layer_manager.cpp``:
 a tree of pose-replica layers explored with UCT; per candidate edge --
 select layer by UCT, Mahalanobis-gate the edge, decide split via a 3-way
 cost comparison, expand (child inherits parent edges + poses) or assign,
 locally/fully optimise, reward r = -dcost_rel + alpha*dH - beta*n_lc, and
 backpropagate up the parent chain.
 
-TPU re-architecture mirrors method 3 (see ``layering.py``): layers are pose
+The accelerator re-architecture mirrors method 3 (see ``layering.py``): layers are pose
 arrays + edge masks; every ``evaluate_layer_cost`` group (the split check's 3
 solves, the reward's 2 solves) is one batched vmapped device call instead of
 serial fresh Ceres problems.
@@ -71,8 +71,8 @@ class MctsManager:
         solver = solver or SolverConfig()
         linear = solver.linear_solver
         if linear in ("auto", "schur"):
-            # See layering.py: PCG on TPU (vmapped dense Cholesky compiles
-            # pathologically slowly there), dense on CPU for small graphs.
+            # See layering.py: PCG on accelerators, dense on CPU for small
+            # graphs.
             import jax as _jax
             if _jax.default_backend() != "cpu":
                 linear = "pcg"

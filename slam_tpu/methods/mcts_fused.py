@@ -1,7 +1,7 @@
 """Method 4 (MCTS layer tree) as ONE compiled device program.
 
 Same re-architecture as ``layering_fused.py`` applied to
-``/root/reference/DCS-ceres/src/simple_layer_manager.cpp``: the whole
+``DCS-ceres/src/simple_layer_manager.cpp``: the whole
 sequential edge loop (``:68-130``) runs as a single ``lax.scan``, with the
 layer *tree* flattened into fixed-size arrays:
 
@@ -358,7 +358,7 @@ class FusedMctsManager:
 
         C = len(cand)
         # None = adaptive chunking (run_chunked probes and resizes under
-        # the worker deadline); an explicit chunk is honored as given.
+        # its per-call bound); an explicit chunk is honored as given.
         chunk = self.scan_chunk
         align = fc.MIN_CHUNK if chunk is None else max(1, min(chunk, C))
         chunk = chunk if chunk is None else align

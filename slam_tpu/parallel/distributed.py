@@ -1,12 +1,12 @@
 """SPMD-distributed LM: edge-data-parallel linearisation + collective PCG.
 
-The reference has no distributed backend (SURVEY §2); the TPU build's scaling
+The reference has no distributed backend (SURVEY §2); here the scaling
 story is SPMD over a device mesh:
 
 * **Edges are the data axis.**  Residual/Jacobian evaluation and H/g block
   assembly -- the per-iteration hot loop -- shard perfectly over edges.  Each
   device linearises its edge shard and the partial node systems are reduced
-  with a single ``psum`` over the ICI (the separator reduction of SURVEY §5's
+  with a single ``psum`` across devices (the separator reduction of SURVEY §5's
   distributed design, specialised to full-node granularity).
 * **PCG runs replicated-x, sharded-A.**  The matvec's off-diagonal action is
   computed on local edge shards and psum-reduced; the (small, replicated)
@@ -17,7 +17,7 @@ story is SPMD over a device mesh:
   one psum per linearisation + one per CG iteration.
 
 This module is written against a logical mesh, so it runs identically on a
-virtual 8-device CPU mesh (tests / dryrun) and a real TPU slice.  SC
+virtual 8-device CPU mesh (tests / dryrun) and on real GPUs.  SC
 (method 2) adds sharded switch unknowns and is routed to the single-device
 path for now.
 """
@@ -29,10 +29,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:  # jax >= 0.8 moved shard_map out of experimental
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from slam_tpu.config import SolverConfig
 from slam_tpu.parallel.mesh import EDGE_AXIS, pad_to_multiple
@@ -184,7 +181,7 @@ def distributed_lm(
             ca = jnp.einsum("eij,ej->ei", Hoff, edges_local.gather_b(x))
             cb = jnp.einsum("eji,ej->ei", Hoff, edges_local.gather_a(x))
             off = edges_local.scatter_a(ca, n) + edges_local.scatter_b(cb, n)
-            # One ICI collective per CG iteration.
+            # One collective per CG iteration.
             return y + jax.lax.psum(off, EDGE_AXIS)
 
         def precond(r):

@@ -1,8 +1,10 @@
 """Device-mesh construction helpers.
 
 The reference is single-process (SURVEY §2: no MPI/NCCL, only a std::async
-thread fan-out).  The TPU build's communication backend is
-``jax.sharding.Mesh`` + ``shard_map`` with XLA collectives; these helpers
+thread fan-out).  Here the communication backend is
+``jax.sharding.Mesh`` + ``shard_map`` with XLA collectives (NCCL on GPUs,
+whose cards are joined all to all, so a mesh follows the algorithm alone);
+these helpers
 centralise mesh creation so every distributed entry point (solver, bench,
 dryrun) builds meshes the same way.
 """
@@ -42,13 +44,13 @@ def init_multihost(
 ) -> bool:
     """Multi-host process bootstrap: ``jax.distributed.initialize``.
 
-    The TPU-native replacement for an MPI launcher (the reference is
-    single-process -- SURVEY §2; a pod-slice deployment of the distributed
-    solvers needs one JAX process per host, all joined to a coordinator
-    before any mesh is built).  On Cloud TPU the arguments auto-detect from
-    the metadata server; elsewhere pass them explicitly or via
+    The replacement for an MPI launcher (the reference is single-process
+    -- SURVEY §2; a multi-host deployment of the distributed solvers needs
+    one JAX process per host, all joined to a coordinator before any mesh
+    is built).  Pass the arguments explicitly or via
     ``SLAM_TPU_COORDINATOR`` / ``SLAM_TPU_NUM_PROCESSES`` /
-    ``SLAM_TPU_PROCESS_ID``.  Safe to call twice (second call is a no-op).
+    ``SLAM_TPU_PROCESS_ID``; one process driving all the cards of one
+    host needs none of this.  Safe to call twice (second call is a no-op).
     Returns True if distributed mode is active (more than one process).
     """
     import os
@@ -81,9 +83,9 @@ def make_replica_block_mesh(
 ) -> Mesh:
     """2-D mesh: pure-DP replica axis (independent problems, e.g. outlier
     seeds -- the reference's Try1/Try2 Monte-Carlo pattern) x map-block axis
-    (partitioned Schur).  On a pod slice the replica axis is the natural
-    DCN/outer dimension (zero collectives cross it) and the block axis
-    rides ICI (separator psums)."""
+    (partitioned Schur).  No collective crosses the replica axis; the
+    block axis carries the separator psums, so across hosts it is the
+    axis to keep within one host."""
     devs = jax.devices()[: num_replicas * num_blocks]
     if len(devs) != num_replicas * num_blocks:
         raise ValueError(

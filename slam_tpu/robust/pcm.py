@@ -24,7 +24,7 @@ the trusted loop set.
 
 All-pairs checks are O(L^2) outer-product arithmetic over the (L,) loop
 summaries -- numpy on the host at ingestion scale (L ~ 2-3k: a few MB),
-and trivially an MXU batch if ever needed on device.
+and trivially a batched matmul if ever needed on device.
 
 SE(3) (r3): the same cycle test with quaternion innovation summaries.
 Rotations are no longer abelian, so the exact cycle error is replaced by

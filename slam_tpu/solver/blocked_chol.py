@@ -1,25 +1,21 @@
-"""Panel-blocked batched Cholesky + triangular solves for the TPU.
+"""Panel-blocked batched Cholesky + triangular solves.
 
-XLA's native ``cho_factor``/``TriangularSolve`` lower to fine-grained
-sequential panel code that dominates the partitioned-Schur solve on this
-backend (measured on INTEL+50, batch 8, P=16: 4.7 ms for the 128x 201^2
-factorizations + 4.4 ms for the Y triangular solves out of a 16.3 ms LM
-iteration).  This module re-expresses both as a SHORT static chain of
-batched matmuls (MXU) plus fully-unrolled p x p panel math (VPU):
+An alternative to XLA's native ``cho_factor``/``TriangularSolve`` for the
+partitioned-Schur interior factorizations: both are re-expressed as a
+SHORT static chain of batched matmuls plus small p x p panel factors:
 
 * ``blocked_cholesky`` — right-looking blocked Cholesky.  Per panel: a
-  tiny (p<=16) native Cholesky + explicit triangular inverse of the
-  diagonal block, one matmul for the column below it, one matmul for the
-  trailing update.  ~n/p sequential steps of MXU work instead of O(n)
-  scalar panel steps.
+  small native Cholesky + explicit triangular inverse of the diagonal
+  block, one matmul for the column below it, one matmul for the trailing
+  update.  ~n/p sequential steps of matmul work instead of O(n) scalar
+  panel steps.
 * ``solve_lower`` / ``solve_lower_t`` — panel forward/backward substitution
   using the stored panel inverses: one matmul per panel step.
 
 Everything is batched over arbitrary leading dims and uses
-``precision=HIGHEST`` (TPU f32 matmuls otherwise run bf16 passes; the
-normal equations are squared-conditioned).  Exactness vs
-``jax.scipy.linalg.cho_factor/cho_solve`` is pinned in
-``tests/test_schur.py``.
+``precision=HIGHEST`` (true f32 products; the normal equations are
+squared-conditioned).  Exactness vs ``jax.scipy.linalg.cho_factor/cho_solve``
+is pinned in ``tests/test_schur.py``.
 """
 
 from __future__ import annotations
@@ -36,15 +32,15 @@ def _mm(a, b):
 
 
 def _chol_panel(a: Array) -> Array:
-    """Cholesky of the (..., p, p) diagonal panel.  The panel is tiny
-    (p<=16), so XLA's native op is cheap here -- the blocking structure
-    around it is what removes the O(n) sequential panel chain."""
+    """Cholesky of the (..., p, p) diagonal panel.  The panel is small,
+    so XLA's native op is cheap here -- the blocking structure around it
+    is what removes the O(n) sequential panel chain."""
     return jnp.linalg.cholesky(a)
 
 
 def _inv_lower_panel(l: Array) -> Array:
     """Explicit inverse of the (..., p, p) lower-triangular panel, so every
-    downstream panel solve is a plain MXU matmul."""
+    downstream panel solve is a plain matmul."""
     eye = jnp.broadcast_to(
         jnp.eye(l.shape[-1], dtype=l.dtype), l.shape
     )
@@ -61,44 +57,15 @@ class BlockedCholesky:
         self.n = n                  # original (unpadded) size
 
 
-def _panel_factor(a: Array, inner: int,
-                  pallas_micro: bool = False) -> tuple[Array, Array]:
+def _panel_factor(a: Array, inner: int) -> tuple[Array, Array]:
     """Cholesky + explicit inverse of one (..., p, p) diagonal panel.
 
-    ``inner > 0`` adds a SECOND blocking level (r4): the panel itself is
+    ``inner > 0`` adds a SECOND blocking level: the panel itself is
     factored as an inner-blocked Cholesky, and its inverse is built by
     panel forward substitution against identity -- so the only native
-    (batch-serialized on this toolchain) ops are inner x inner, with
-    everything else MXU matmuls.  Measured motivation: batch-scaling on
-    the bench workload shows wall time LINEAR in batch for the native
-    128x128 panel ops (results/ROUND4.md section 1), i.e. XLA executes
-    them serially across the batch axis.
-
-    ``pallas_micro`` (r5) replaces the two natives with the batch-on-lanes
-    Pallas kernel (``ops/pallas_chol.py``) -- one kernel pass factors and
-    inverts EVERY matrix in the leading batch simultaneously, lanes =
-    batch.  Auto-skipped for tiny batches (< 8: most lanes would idle;
-    the separator factorization is the M=1 case) and non-f32 dtypes.
+    ops are inner x inner, with everything else batched matmuls.
     """
     p = a.shape[-1]
-    lead = 1
-    for d in a.shape[:-2]:
-        lead *= d
-    if (pallas_micro and lead >= 8 and a.dtype == jnp.float32
-            and not inner):
-        # The custom_vmap-folded wrappers (r5 §2 fix) collapse any
-        # OUTER vmap axes (the production per-seed vmap) into the
-        # kernel's lane axis instead of a pallas grid dimension, so the
-        # kernel always runs at full lane occupancy.
-        from slam_tpu.ops.pallas_chol import (
-            micro_chol_inv_folded,
-            micro_chol_inv_folded_interpret,
-        )
-
-        fn = (micro_chol_inv_folded_interpret
-              if jax.default_backend() == "cpu" else micro_chol_inv_folded)
-        L, inv = fn(a.reshape((lead, p, p)))
-        return L.reshape(a.shape), inv.reshape(a.shape)
     if not inner or p <= inner or p % inner:
         L = _chol_panel(a)
         return L, _inv_lower_panel(L)
@@ -109,15 +76,12 @@ def _panel_factor(a: Array, inner: int,
 
 
 def blocked_cholesky(A: Array, panel: int = 16,
-                     inner: int = 0,
-                     pallas_micro: bool = False) -> BlockedCholesky:
+                     inner: int = 0) -> BlockedCholesky:
     """Right-looking blocked Cholesky of batched SPD matrices (..., n, n).
 
     Pads to a multiple of ``panel`` with an identity block (benign for SPD;
     padded rows/columns stay zero in solves).  ``inner`` optionally blocks
-    the diagonal-panel factorization itself; ``pallas_micro`` routes the
-    panel factor+inverse through the batch-on-lanes Pallas kernel (see
-    ``_panel_factor``)."""
+    the diagonal-panel factorization itself (see ``_panel_factor``)."""
     n = A.shape[-1]
     p = panel
     n_pad = -(-n // p) * p
@@ -138,7 +102,7 @@ def blocked_cholesky(A: Array, panel: int = 16,
     col_blocks = []
     inv_diag = []
     for i in range(steps):
-        L11, inv11 = _panel_factor(T[..., :p, :p], inner, pallas_micro)
+        L11, inv11 = _panel_factor(T[..., :p, :p], inner)
         inv_diag.append(inv11)
         L21 = _mm(T[..., p:, :p], jnp.swapaxes(inv11, -1, -2))
         col = jnp.concatenate(

@@ -1,6 +1,6 @@
 """Partitioned Schur-complement direct solver.
 
-The TPU-native replacement for sparse Cholesky at scale, and the numerical
+The accelerator replacement for sparse Cholesky at scale, and the numerical
 core of the distributed design (SURVEY §5, BASELINE.json): partition the
 pose graph into ``P`` contiguous map blocks (odometry edges are index-local,
 ``g2o_util.h:68``, so contiguous ranges cut few edges), eliminate each
@@ -16,7 +16,7 @@ Everything is assembled with incidence/selection matmuls (no gather/scatter
 in the compiled program -- see ``ops/indexing.py``) and the per-block work is
 a ``vmap`` over the block axis, which is exactly the axis a multi-device
 ``shard_map`` distributes (``parallel/schur_dist`` analog in
-``distributed_lm``'s mesh).  On one chip this is simply a much faster exact
+``distributed_lm``'s mesh).  On one device this is simply a much faster exact
 solver than full dense: O(P (n/P)^3 + ns^3) instead of O(n^3).
 
 Separator = nodes incident to any cross-block edge.  Node 0 (the gauge
@@ -36,15 +36,15 @@ from slam_tpu.solver.linearize import BlockSystem
 from slam_tpu.solver.problem import EdgeSet
 
 Array = jax.Array
-# HIGHEST (bf16_6x) is load-bearing: a Precision.HIGH experiment ran ~16%
-# faster but degraded per-iteration quality measurably (INTEL+50 seed42,
-# 50 iters: cost 1.75 vs 1.52) -- faster-but-worse iterations are not a win
-# for a quality-gated iterations/s metric.
+# HIGHEST (true f32 products; no bf16 passes, no TF32) is a quality choice:
+# a reduced-precision experiment reached a measurably worse cost (INTEL+50
+# seed 42, 50 iters: 1.75 vs 1.52) -- faster-but-worse iterations are not
+# a win for a quality-gated iterations/s metric.
 _PREC = jax.lax.Precision.HIGHEST
 # Interior-elimination strategy threshold: explicit L-inverse (all-matmul)
-# up to this interior dimension, half-substitution triangular pass above
-# (the explicit (D*ni)^2 inverse is memory-bound and measured slower at
-# M10000's D*ni=3705).  Module-level so tests can force either branch.
+# up to this interior dimension, half-substitution triangular pass above.
+# On the H100 the two sides tie within 2% at INTEL (D*ni=201) and M10000
+# (D*ni=909) -- PERF.md.  Module-level so tests can force either branch.
 _INV_MAX_DIM = 1024
 
 
@@ -76,7 +76,7 @@ class SchurPartition(NamedTuple):
     * ``loc_sel``: (P, nsk_max, ns) -- local separator slot -> global
       separator slot one-hots (zero rows for padding); used to expand each
       block's local S/rhs contributions into the global separator system
-      and to gather x_sep back per block, all as MXU matmuls
+      and to gather x_sep back per block, all as matmuls
     * ``se_sep_a``/``se_sep_b``: (es_max, ns) -- sep-edge endpoint ->
       separator-slot one-hots (the C assembly stays global: every edge
       with >=1 separator endpoint contributes to C exactly once)
@@ -278,7 +278,8 @@ def partition_stats(
 
 
 def _tile(x: int | float, t: int = 128) -> int:
-    """Round ``x`` up to a multiple of the TPU lane tile (128)."""
+    """Round ``x`` up to a multiple of a 128-wide tile (the cost model's
+    padding unit; fitted before the GPU port, refit is ROADMAP S7)."""
     x = int(x)
     return -(-x // t) * t
 
@@ -322,12 +323,11 @@ def choose_partition(
     index ranges; ``node_block=None``).  ``scheme='graph'`` picks the best
     power-of-two level of one recursive-spectral-bisection tree
     (``partition.partition_tree``).  ``'auto'`` evaluates both under the
-    same tile-padded cost model and keeps the cheaper one -- measured: the
-    graph scheme wins wherever loop closures span many indices (M10000
-    ns 1793 -> 428 at P=24, 14.7 -> 31.3 it/s; M3500 ns 931 -> 213 at
-    P=6) and loses on path-ordered graphs (INTEL ns 166 -> 247 at P=16),
-    which is exactly what the model predicts, so the choice needs no
-    per-dataset knobs.
+    same tile-padded cost model and keeps the cheaper one: the graph
+    scheme shrinks the separator wherever loop closures span many indices
+    (M10000 ns 1793 -> 428 at P=24; M3500 ns 931 -> 213 at P=6) and grows
+    it on path-ordered graphs (INTEL ns 166 -> 247 at P=16), so the choice
+    needs no per-dataset knobs.
     """
     ij = np.asarray(ij)
     D = tangent_dim
@@ -370,17 +370,15 @@ def choose_num_blocks(
     """Pick the Schur block count minimising a tile-padded cost model.
 
     Counts the dominant matmul terms of :func:`schur_solve` with every
-    dimension rounded up to the 128-lane TPU tile (small per-block
-    matrices waste the MXU; a raw flop count misses that and picks too
-    few blocks at scale).  Separator-side terms (local->global S
-    expansion, separator Cholesky, C assembly) are down-weighted
-    (0.5/0.5/0.3): they are single large dense matmuls running near peak
-    MXU utilisation, while the per-block terms are P-batched small
-    matmuls at lower efficiency.  Weights fitted (r3) to reproduce the
-    measured winners with >=30% margin: INTEL+50 -> 16 (622 it/s vs
-    552/497 at 12/24), M10000+50 -> 24 (14.9 it/s vs 12.5/12.7/11.6 at
-    8/12/32) -- results/ROUND2.md; M3500 -> 8 (measured best 6, 8 within
-    a few % -- results/README.md).
+    dimension rounded up to a 128-wide tile (small per-block matrices
+    waste a matrix unit; a raw flop count misses that and picks too few
+    blocks at scale).  Separator-side terms (local->global S expansion,
+    separator Cholesky, C assembly) are down-weighted (0.5/0.5/0.3): they
+    are single large dense matmuls running near peak, while the per-block
+    terms are P-batched small matmuls at lower efficiency.  The weights
+    were fitted to the winners measured before the GPU port (INTEL+50 ->
+    16, M10000+50 -> 24, M3500 -> 8); PERF.md holds the H100 block-count
+    sweep, and the refit is ROADMAP S7.
 
     For SE(3) (``tangent_dim >= 6``) candidates whose separator exceeds
     n/8 poses are rejected outright: sphere2500 converges measurably
@@ -532,8 +530,7 @@ def _mm(a, b):
 from functools import partial as _partial
 
 
-@_partial(jax.jit, static_argnames=("blocked", "panel", "panel_inner",
-                                    "pallas_micro"))
+@_partial(jax.jit, static_argnames=("blocked", "panel", "panel_inner"))
 def schur_solve(
     system: BlockSystem,
     edges: EdgeSet,
@@ -542,7 +539,6 @@ def schur_solve(
     blocked: bool | None = None,
     panel: int = 16,
     panel_inner: int = 0,
-    pallas_micro: bool = False,
 ) -> Update:
     """Exact damped-normal-equation solve via two-level Schur elimination.
 
@@ -550,15 +546,11 @@ def schur_solve(
     topology comes from the precomputed ``SchurPartition`` maps -- the
     EdgeSet is only consulted for the padded edge count, so chain-compressed
     (or incidence-free) EdgeSets work.  ``blocked`` selects the
-    panel-blocked MXU Cholesky/solves (``blocked_chol.py``) instead of
+    panel-blocked Cholesky/solves (``blocked_chol.py``) instead of
     XLA's native ops; exact either way (see default note below).
     """
-    # Measured on INTEL+50 batch 8 (results/README.md): the panel-blocked
-    # path is 5-10% SLOWER in-context than XLA's native cho_factor /
-    # TriangularSolve here (XLA overlaps the natives with surrounding work;
-    # standalone microbenches over-attribute their cost), so native stays
-    # the default on every backend.  The blocked path remains available and
-    # exactness-tested for larger interior blocks.
+    # Callers choose: global_solve.py enables the blocked path where it
+    # measured faster (small interiors on accelerators, PERF.md).
     if blocked is None:
         blocked = False
     _panel = panel
@@ -583,7 +575,7 @@ def schur_solve(
     # rotation/translation scales badly enough that the unscaled f32 solve
     # rejects nearly every LM step on sphere2500 (cost stuck at 22.3 vs
     # f64's convergence; CPU f32 reproduces, so it is conditioning, not a
-    # TPU artifact).  dampv = lam * clip(diag) * scale^2 == lam exactly on
+    # device artifact).  dampv = lam * clip(diag) * scale^2 == lam exactly on
     # in-range slots.
     scale = jnp.where(dnode == 0.0, jnp.ones_like(dnode),
                       1.0 / jnp.sqrt(clipd))                # (N, D)
@@ -667,7 +659,7 @@ def schur_solve(
     def expand_S(S_loc):
         """Sum per-block local (D*nsk, D*nsk) separator contributions into
         the global (D*ns, D*ns) system via the local->global one-hots --
-        two batched MXU matmuls, no scatter."""
+        two batched matmuls, no scatter."""
         S4 = S_loc.reshape(P_blk, D, nsk, D, nsk)
         T1 = jnp.einsum("pambn,pnv->pambv", S4, part.loc_sel,
                         precision=_PREC)
@@ -691,22 +683,18 @@ def schur_solve(
     #   rhs_s = b_sep - G_F^T g_b
     #   x_int = L^-T (g_b - G_F x_sep)
     # One forward-triangular pass over the (D*ns + 1) RHS instead of
-    # cho_solve's forward+backward pair: triangular solves are the
-    # dominant stage on TPU (measured 7.4 of 15.5 ms per bench iteration;
-    # scripts/profile_schur_stages.py), and this halves their volume while
-    # moving the F^T Y contraction onto the MXU as G^T G.
+    # cho_solve's forward+backward pair: this halves the triangular-solve
+    # volume and turns the F^T Y contraction into the matmul G^T G.
     if blocked:
         from slam_tpu.solver import blocked_chol as bc
-        fac = bc.blocked_cholesky(A_b, panel=_panel, inner=panel_inner,
-                                  pallas_micro=pallas_micro)
+        fac = bc.blocked_cholesky(A_b, panel=_panel, inner=panel_inner)
         Fb_ext = jnp.concatenate([F_b, b_b[..., None]], axis=-1)
         use_inv_bc = A_b.shape[-1] <= _INV_MAX_DIM
         if use_inv_bc:
             # Same explicit-inverse strategy as the native small-interior
             # branch, with the panel-blocked forward substitution: one
             # wide (n_pad-RHS) panel pass builds L^-1, everything after is
-            # MXU matmuls (r4: panel=128 measured faster in context than
-            # the native ops -- see SolverConfig.schur_panel).
+            # matmuls.
             eye = jnp.broadcast_to(
                 jnp.eye(fac.L.shape[-1], dtype=dtype),
                 fac.L.shape,
@@ -731,15 +719,12 @@ def schur_solve(
             lambda A: jax.scipy.linalg.cho_factor(A, lower=True)[0]
         )(A_b)
         Fb_ext = jnp.concatenate([F_b, b_b[..., None]], axis=-1)
-        # Triangular solves -- not matmuls -- are the measured bottleneck
-        # of this solver on TPU (scripts/profile_schur_stages.py).  For
-        # SMALL interiors, invert L explicitly: the only triangular op is
-        # the (D*ni)-RHS inversion, and forming G / the back-substitution
-        # become MXU matmuls (INTEL bench 524 -> 530 it/s).  For LARGE
-        # interiors the explicit (D*ni)^2 inverse is memory-bound and
-        # LOSES (M10000 6.03 -> 5.78 it/s measured), so fall back to one
-        # forward-triangular pass over [F | b] (still half of
-        # cho_solve's forward+backward pair).
+        # For SMALL interiors, invert L explicitly: the only triangular op
+        # is the (D*ni)-RHS inversion, and forming G / the
+        # back-substitution become matmuls.  For LARGE interiors the
+        # explicit (D*ni)^2 inverse is memory-bound, so fall back to one
+        # forward-triangular pass over [F | b] (still half of cho_solve's
+        # forward+backward pair).  See _INV_MAX_DIM.
         use_inv = A_b.shape[-1] <= _INV_MAX_DIM
         if use_inv:
             eye = jnp.eye(A_b.shape[-1], dtype=dtype)

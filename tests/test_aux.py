@@ -13,16 +13,11 @@ from slam_tpu.solver.lm import lm_fixed_iters
 from slam_tpu.solver.problem import anchor_first_node, edge_set_from_graph
 from slam_tpu.utils import checkpoint, profiling
 
-REF_DATA = "/root/reference/DCS-ceres/data"
-needs_ref = pytest.mark.skipif(
-    not os.path.isdir(REF_DATA), reason="reference datasets unavailable"
-)
 needs_native = pytest.mark.skipif(
     not native.available(), reason="native g2o library not built"
 )
 
 
-@needs_ref
 @needs_native
 @pytest.mark.parametrize("name", ["INTEL", "CSAIL", "M3500"])
 def test_native_parser_matches_python(name):

@@ -65,9 +65,9 @@ def test_solve_report_fields_and_termination(tmp_path):
     from slam_tpu.methods.global_solve import run_global_solve
     from slam_tpu.utils.logging import RunLogger
 
-    g = g2o.load_g2o(g2o.find_dataset("MIT"))
+    g = g2o.load_g2o(g2o.find_dataset("CSAIL"))
     cfg = RunConfig(
-        dataset="MIT", method=1, report_stages=True,
+        dataset="CSAIL", method=1, report_stages=True,
         solver=SolverConfig(max_iterations=8),
     )
     logpath = tmp_path / "run.log"

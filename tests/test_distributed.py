@@ -104,8 +104,7 @@ def test_distributed_schur_matches_single_device():
     free = anchor_first_node(g.num_nodes, dtype=dtype)
     poses0 = jnp.asarray(g.poses, dtype)
     sw0 = jnp.ones((edges.num_edges,), dtype)
-    cfg = SolverConfig(robust="dcs", linear_solver="dense", dtype="float64",
-                       use_pallas="off")
+    cfg = SolverConfig(robust="dcs", linear_solver="dense", dtype="float64")
     ref = lm_fixed_iters(poses0, sw0, edges, free, cfg, 8)
 
     prob = build_dist_problem(g, 8, dtype=dtype)
@@ -143,8 +142,7 @@ def test_distributed_schur_sc_matches_single_device():
     free = anchor_first_node(g.num_nodes, dtype=dtype)
     poses0 = jnp.asarray(g.poses, dtype)
     sw0 = jnp.ones((edges.num_edges,), dtype)
-    cfg = SolverConfig(robust="sc", linear_solver="dense", dtype="float64",
-                       use_pallas="off")
+    cfg = SolverConfig(robust="sc", linear_solver="dense", dtype="float64")
     ref = lm_fixed_iters(poses0, sw0, edges, free, cfg, 8)
 
     prob = build_dist_problem(g, 4, dtype=dtype)
@@ -183,7 +181,7 @@ def test_distributed_edge_sharded_sc_matches_single_device():
     joint solve."""
     graph, edges, free, poses0 = _setup(True)
     cfg = SolverConfig(robust="sc", linear_solver="pcg", dtype="float64",
-                       pcg_max_iters=400, pcg_rtol=1e-11, use_pallas="off")
+                       pcg_max_iters=400, pcg_rtol=1e-11)
     sw0 = jnp.ones((edges.num_edges,), jnp.float64)
     ref = lm_fixed_iters(poses0, sw0, edges, free, cfg, 5)
 
@@ -226,8 +224,7 @@ def test_replica_batched_schur_matches_per_seed():
               for s in (2, 7)]
     dtype = jnp.float64
     free = anchor_first_node(base.num_nodes, dtype=dtype)
-    cfg = SolverConfig(robust="dcs", linear_solver="dense", dtype="float64",
-                       use_pallas="off")
+    cfg = SolverConfig(robust="dcs", linear_solver="dense", dtype="float64")
 
     refs = []
     mesh1 = make_block_mesh(4)
@@ -285,7 +282,7 @@ def test_dist_problem_edge_ownership():
 def test_distributed_schur_se3_matches_single_device():
     """SE(3) (dim-7 poses, 6-dof tangent) through the block-per-device
     Schur path: a small synthetic sphere must reproduce the single-device
-    dense SE(3) solve exactly (VERDICT r3 weak #6 -- multi-chip SE(3)
+    dense SE(3) solve exactly (VERDICT r3 weak #6 -- multi-device SE(3)
     correctness was previously untested)."""
     from slam_tpu.parallel.schur_dist import (
         build_dist_problem,
@@ -304,8 +301,7 @@ def test_distributed_schur_se3_matches_single_device():
     free = anchor_first_node(g.num_nodes, dtype=dtype)
     poses0 = jnp.asarray(g.poses, dtype)
     sw0 = jnp.ones((edges.num_edges,), dtype)
-    cfg = SolverConfig(robust="dcs", linear_solver="dense", dtype="float64",
-                       use_pallas="off")
+    cfg = SolverConfig(robust="dcs", linear_solver="dense", dtype="float64")
     ref = lm_fixed_iters(poses0, sw0, edges, free, cfg, 6, model=SE3Model)
 
     prob = build_dist_problem(g, 4, dtype=dtype)
@@ -340,8 +336,7 @@ def test_distributed_schur_graph_partition_matches_single_device():
     free = anchor_first_node(g.num_nodes, dtype=dtype)
     poses0 = jnp.asarray(g.poses, dtype)
     sw0 = jnp.ones((edges.num_edges,), dtype)
-    cfg = SolverConfig(robust="dcs", linear_solver="dense", dtype="float64",
-                       use_pallas="off")
+    cfg = SolverConfig(robust="dcs", linear_solver="dense", dtype="float64")
     ref = lm_fixed_iters(poses0, sw0, edges, free, cfg, 8)
 
     nb = graph_partition(g.edges_ij, g.num_nodes, 8)

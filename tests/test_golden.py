@@ -37,8 +37,7 @@ def _solve(name, outliers, seed, max_iterations, robust):
     poses0 = jnp.asarray(g.poses)
     sw0 = jnp.ones((edges.num_edges,), jnp.float64)
     cfg = SolverConfig(robust=robust, linear_solver="dense",
-                       dtype="float64", max_iterations=max_iterations,
-                       use_pallas="off")
+                       dtype="float64", max_iterations=max_iterations)
     return lm_solve(poses0, sw0, edges, free, cfg)
 
 
@@ -159,7 +158,7 @@ def test_m3500_auto_init_lands_near_golden_all_counts():
     """Cheap full-grid gate: the auto init alone (PCM-gated chordal, host
     side) lands within a few meters of the golden fixed point at EVERY
     BASELINE outlier count -- the property that makes the nonlinear solve
-    converge (TPU-measured final ATE <= 0.03 at 0/10/50/100)."""
+    converge (final ATE <= 0.03 at 0/10/50/100)."""
     from slam_tpu.config import RunConfig
     from slam_tpu.io import g2o as g2o_io
     from slam_tpu.solver.init import apply_init

@@ -6,7 +6,8 @@ algorithms (``layer_manager.cpp:343-468``,
 ``simple_layer_manager.cpp:68-130``) with short Ceres-semantics LM solves
 sharing no code with the production solver.  These gates require the
 production host managers (whose fused twins are pinned equal in
-tests/test_methods.py and tests_tpu/) to make IDENTICAL decisions.
+tests/test_methods.py and by chip_smoke.py on the GPU) to make
+IDENTICAL decisions.
 
 The full INTEL-slice and INTEL+50 diffs are recorded by
 ``scripts/manager_oracle_check.py`` in ``results/manager_oracle.json``.

@@ -112,7 +112,7 @@ def test_intel100_consensus_rescue_matches_golden():
     """The r3 headline gate: INTEL + DCS + 100 injected outliers (the
     reference's own published regime, docs/INTEL/INTEL_100_ON_Try2.png)
     through the PRODUCT pipeline must land on the committed golden
-    (f64 TPU-measured ATE 0.017-0.025 across seeds).  Reduced budget:
+    (f64 ATE 0.017-0.025 across seeds).  Reduced budget:
     2 chains (the trim-from-full chain alone rescues this seed) and 30
     LM iterations per solve."""
     import json

@@ -72,10 +72,10 @@ def test_partition_stats_match_build(problem):
 
 
 def test_choose_num_blocks_measured_winners():
-    """The tile-padded cost model reproduces the measured per-dataset
-    block-count winners: INTEL+50 -> 16 (622 it/s, results/ROUND2.md),
-    M10000+50 -> 24 (14.9 it/s, results/ROUND2.md), sphere2500 -> 4 (the
-    SE(3) f32 quality winner, guarded by the separator cap)."""
+    """The tile-padded cost model keeps its picks: INTEL+50 -> 16,
+    M10000+50 -> 24, sphere2500 -> 4 (the SE(3) f32 quality winner,
+    guarded by the separator cap).  These pin the model's choices (fitted
+    to winners measured before the GPU port), not a measurement."""
     from slam_tpu.io import g2o
     from slam_tpu.solver.schur import choose_num_blocks
 
@@ -95,10 +95,11 @@ def test_choose_num_blocks_measured_winners():
 
 
 def test_choose_partition_measured_scheme_winners():
-    """Scheme selection reproduces the r5 measured winners: INTEL stays on
-    contiguous index cuts (graph cuts fragment the path-ordered layout:
-    ns 166 -> 247 at P=16), M10000 flips to the spectral graph scheme
-    (index P=24 14.77 it/s vs graph P=32 31.99 measured on chip)."""
+    """Scheme selection keeps its picks: INTEL stays on contiguous index
+    cuts (graph cuts fragment the path-ordered layout: ns 166 -> 247 at
+    P=16), M10000 flips to the spectral graph scheme (its separator
+    shrinks from 1793 to about 450 nodes).  These pin the cost model's
+    choices, not a measurement."""
     import os
 
     from slam_tpu.io import g2o
@@ -117,7 +118,7 @@ def test_choose_partition_measured_scheme_winners():
 
 
 def test_blocked_cholesky_matches_scipy():
-    """Panel-blocked Cholesky/solves (the TPU path inside schur_solve)
+    """Panel-blocked Cholesky/solves (the ``blocked`` path of schur_solve)
     reproduce LAPACK to machine precision, including padded sizes and both
     vector and matrix right-hand sides."""
     from slam_tpu.solver import blocked_chol as bc
@@ -251,7 +252,7 @@ def test_schur_half_substitution_branch_matches_dense(problem, monkeypatch):
     part = build_partition(graph.edges_ij, graph.num_nodes, 4,
                            dtype=jnp.float64)
     cfg_d = SolverConfig(robust="dcs", linear_solver="dense",
-                         dtype="float64", use_pallas="off",
+                         dtype="float64",
                          max_iterations=6, function_tolerance=0.0)
     cfg_s = cfg_d.replace(linear_solver="schur")
     res_d = lm_solve(poses0, sw0, edges, free, cfg_d)

@@ -100,7 +100,7 @@ def test_lm_with_tridiag_pcg_matches_dense(circle_outliers):
     free = anchor_first_node(graph.num_nodes, dtype=jnp.float64)
     poses0 = jnp.asarray(graph.poses)
     sw0 = jnp.ones((edges.num_edges,), jnp.float64)
-    base = SolverConfig(robust="dcs", dtype="float64", use_pallas="off")
+    base = SolverConfig(robust="dcs", dtype="float64")
     res_d = lm_solve(poses0, sw0, edges, free,
                      base.replace(linear_solver="dense"))
     res_p = lm_solve(poses0, sw0, edges, free,
