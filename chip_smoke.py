@@ -10,16 +10,23 @@ reference:
 
 1. device    -- JAX's first device must be a GPU; no CPU fallback.
 2. INTEL+50  -- the CLI product pipeline (``slam_tpu.cli.main``, method 1,
-   seed 42): ATE of ``opt_nodes`` against the committed f64 golden; plus
-   the plain DCS solve (dense, 100 iterations, no rescue) against its CPU
-   f64 anchor costs.
-3. M10000+50 -- DCS, spectral-partitioned Schur, 50 iterations in chunks
-   of 10: gate ``cost < 0.8 cost0``; the first chunk against the same
-   solver in f64 on the host CPU, both in f32 and in f64 on the card.
+   seed 42): ATE of ``opt_nodes`` against the committed f64 golden; the
+   plain DCS solve (dense, 100 iterations, no rescue) against its CPU f64
+   anchor costs; and the bench workload (50 fixed iterations) solved
+   dense, by native Schur P=16 and by blocked-Cholesky Schur P=16, each
+   against its CPU f64 anchor.
+3. M10000+50 -- DCS, spectral-partitioned Schur with the default
+   (blocked) interior factorization, 50 iterations in chunks of 10: gate
+   ``cost < 0.8 cost0``; the first chunk, in f32 and in f64 on the card,
+   against the solver in f64 on the host CPU with LAPACK's factorization.
 4. sphere2500 SE(3)+20 corrupted closures -- Schur P=4, 30 iterations:
    gate ``cost < cost0``; first chunk against f64 as in phase 3.
-5. fused method 4 on an INTEL prefix slice -- the fused scan engine makes
-   the same decisions as the host manager, both on the card in f32.
+5. fused methods 3 and 4 on an INTEL prefix slice -- each fused scan
+   engine makes the same decisions as its host manager, both on the card
+   in f32, and fused method 3 with exact-Schur candidate evaluation makes
+   the same decisions as with dense.  Both host managers must split the
+   slice into several layers, so the comparison covers the split and
+   selection logic.
 
 ``--four-gpu``: ``parallel/schur_dist.py`` with its block axis over four
 cards on M3500+50, against the single-card Schur solve of the same graph.
@@ -62,6 +69,11 @@ INTEL_ATE_TOL = 0.05
 #: solve against them.
 INTEL_PLAIN_ANCHOR = (2.969723, 1.508126)
 INTEL_PLAIN_RTOL = 1e-3
+#: The bench workload, INTEL+50 seed 42 with ``lm_fixed_iters`` for 50
+#: iterations: CPU f64 initial and final cost (dense and Schur agree to
+#: 1e-12).  Each f32 solve on the card is held to ``INTEL_PLAIN_RTOL``.
+INTEL_FIXED_ANCHOR = (2.969723, 1.516733)
+FIXED_ITERS = 50
 #: Same solver in f64 on the card against f64 on the CPU (costs).
 F64_RTOL = 1e-8
 #: f32 initial cost against the f64 one.
@@ -124,7 +136,9 @@ def phase_intel(save_dir: str, dataset: str = "INTEL",
                 num_outliers: int = 50, seed: int = 42,
                 golden: np.ndarray | None = None,
                 plain_anchor: tuple[float, float] = INTEL_PLAIN_ANCHOR,
-                plain_iters: int = 100) -> dict:
+                plain_iters: int = 100,
+                fixed_anchor: tuple[float, float] = INTEL_FIXED_ANCHOR,
+                nblocks: int = bench.NUM_BLOCKS) -> dict:
     from slam_tpu import cli
     from slam_tpu.methods.global_solve import run_global_solve
 
@@ -152,8 +166,41 @@ def phase_intel(save_dir: str, dataset: str = "INTEL",
           f"plain initial cost {c0} vs anchor {plain_anchor[0]}")
     check(_rel(c, plain_anchor[1]) <= INTEL_PLAIN_RTOL,
           f"plain final cost {c} vs anchor {plain_anchor[1]}")
-    return {"ate_m": ate, "plain_cost0": c0, "plain_cost": c,
-            "plain_iters": int(plain.iterations)}
+    out = {"ate_m": ate, "plain_cost0": c0, "plain_cost": c,
+           "plain_iters": int(plain.iterations)}
+    out.update(fixed_iters_vs_anchor(graph.canonical_order(), fixed_anchor,
+                                     nblocks))
+    return out
+
+
+def fixed_iters_vs_anchor(g: PoseGraph, anchor: tuple[float, float],
+                          nblocks: int) -> dict:
+    """``FIXED_ITERS`` f32 LM iterations solved dense, by native Schur and
+    by panel-128 blocked-Cholesky Schur, each against the f64 anchor."""
+    from slam_tpu.solver.lm import lm_fixed_iters
+    from slam_tpu.solver.problem import anchor_first_node, edge_set_from_graph
+
+    dt = jnp.float32
+    edges = edge_set_from_graph(g, dtype=dt, incidence=True)
+    free = anchor_first_node(g.num_nodes, dtype=dt)
+    part = schur.build_partition(g.edges_ij, g.num_nodes, nblocks, dtype=dt)
+    dense = SolverConfig(robust="dcs", linear_solver="dense", dtype="float32")
+    native = dense.replace(linear_solver="schur")
+    out = {}
+    for name, cfg in (("dense", dense), ("schur", native),
+                      ("schur_blocked", native.replace(schur_blocked=True,
+                                                       schur_panel=128))):
+        r = lm_fixed_iters(jnp.asarray(g.poses, dt),
+                           jnp.ones((edges.num_edges,), dt), edges, free,
+                           cfg, FIXED_ITERS,
+                           partition=None if name == "dense" else part)
+        c0, c = float(r.initial_cost), float(r.cost)
+        check(_rel(c0, anchor[0]) <= INTEL_PLAIN_RTOL
+              and _rel(c, anchor[1]) <= INTEL_PLAIN_RTOL,
+              f"{name} {FIXED_ITERS} iterations {c0} -> {c} vs anchor "
+              f"{anchor[0]} -> {anchor[1]}")
+        out[f"{name}_cost{FIXED_ITERS}"] = c
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -163,10 +210,11 @@ def phase_intel(save_dir: str, dataset: str = "INTEL",
 def _chunked_vs_cpu(make_problem, iters: int, gate, gate_what: str,
                     f32_rtol: float, memory: bool = False) -> dict:
     """f32 on the card for ``iters`` iterations behind ``gate``; then the
-    first chunk against the same solver in f64, on the card and on the
-    host CPU."""
+    first chunk in f64 on the card, and both against f64 on the host CPU
+    with LAPACK's factorization."""
     prob = make_problem(jnp.float32)
-    out = {"blocks": prob.nblocks, "scheme": prob.scheme}
+    out = {"blocks": prob.nblocks, "scheme": prob.scheme,
+           "blocked": prob.cfg.schur_blocked}
     if memory:
         mem = bench.chunk_compiled(prob).memory_analysis()
         print(f"  memory_analysis: {mem}")
@@ -180,10 +228,13 @@ def _chunked_vs_cpu(make_problem, iters: int, gate, gate_what: str,
     if stats and "peak_bytes_in_use" in stats:
         out["peak_bytes_in_use"] = int(stats["peak_bytes_in_use"])
 
-    def first_chunk():
-        return bench.solve_chunks(make_problem(jnp.float64), bench.CHUNK)[1:]
+    def first_chunk(native: bool = False):
+        p = make_problem(jnp.float64)
+        if native:  # LAPACK's factorization: independent of blocked_chol
+            p = p._replace(cfg=p.cfg.replace(schur_blocked=False))
+        return bench.solve_chunks(p, bench.CHUNK)[1:]
 
-    ref0, ref = on_cpu_f64(first_chunk)
+    ref0, ref = on_cpu_f64(lambda: first_chunk(native=True))
     with jax.enable_x64(True):
         dev0, dev = first_chunk()
     check(_rel(dev0, ref0) <= F64_RTOL and _rel(dev[0], ref[0]) <= F64_RTOL,
@@ -236,26 +287,75 @@ def intel_prefix_slice(graph: PoseGraph | None = None, closures: int = 40,
     return sub.add_random_outliers(outliers, seed=seed)
 
 
-def phase_mcts(graph: PoseGraph | None = None) -> dict:
+#: MCTS split threshold for phase 5.  The default (0.3) never splits the
+#: slice; at 0.01 the host manager grows four layers, its most-edges
+#: pick differs from its best one, and every split decision clears the
+#: threshold by over 1e-4 (costs are ~0.04, so far above f32 noise).
+MCTS_CONFLICT_TAU = 0.01
+
+
+def phase_methods(graph: PoseGraph | None = None,
+                  min_layers: int = 2) -> dict:
+    from slam_tpu.config import LayeringConfig
+    from slam_tpu.methods.layering import LayeringManager
+    from slam_tpu.methods.layering_fused import FusedLayeringManager
     from slam_tpu.methods.mcts import MctsManager
     from slam_tpu.methods.mcts_fused import FusedMctsManager
 
     sub = intel_prefix_slice(graph)
-    cfg = MctsConfig(local_iters=2, max_layers=10)
     solver = SolverConfig(linear_solver="dense", dtype="float32")
-    host = MctsManager(sub, cfg, solver, RunLogger(echo=False)).run()
-    fused = FusedMctsManager(sub, cfg, solver, RunLogger(echo=False)).run()
-    check(fused.assignments == host.assignments,
-          "fused and host edge assignments differ")
-    check(fused.best_layer == host.best_layer, "best layer differs")
-    check(fused.most_visited_layer == host.most_visited_layer,
+
+    def run(manager, cfg, solver_cfg=solver):
+        return manager(sub, cfg, solver_cfg, RunLogger(echo=False)).run()
+
+    lcfg = LayeringConfig(local_iters=2, max_layers=10)
+    host3, fused3 = run(LayeringManager, lcfg), run(FusedLayeringManager, lcfg)
+    check(len(host3.layers) >= min_layers,
+          f"method 3 host made {len(host3.layers)} layers")
+    check(fused3.assignments == host3.assignments,
+          "method 3 fused and host edge assignments differ")
+    check(fused3.best_layer == host3.best_layer, "method 3 best layer differs")
+    check(len(fused3.layers) == len(host3.layers),
+          "method 3 layer count differs")
+    d3 = float(np.abs(np.asarray(fused3.poses) - host3.poses).max())
+    check(d3 <= 5e-4, f"method 3 fused poses differ from host by {d3}")
+
+    schur3 = run(FusedLayeringManager,
+                 LayeringConfig(local_iters=2, max_layers=10,
+                                eval_linear="schur", eval_schur_blocks=8),
+                 solver.replace(linear_solver="schur"))
+    check(schur3.assignments == fused3.assignments,
+          "method 3 exact-Schur evaluation assignments differ from dense")
+    check(schur3.best_layer == fused3.best_layer,
+          "method 3 exact-Schur evaluation best layer differs")
+    check(len(schur3.layers) == len(fused3.layers),
+          "method 3 exact-Schur evaluation layer count differs")
+    ds = float(np.abs(np.asarray(schur3.poses) - fused3.poses).max())
+    check(ds <= 5e-3, f"method 3 Schur-evaluated poses differ by {ds}")
+
+    mcfg = MctsConfig(local_iters=2, max_layers=10,
+                      conflict_tau=MCTS_CONFLICT_TAU)
+    host4, fused4 = run(MctsManager, mcfg), run(FusedMctsManager, mcfg)
+    check(len(host4.layers) >= min_layers,
+          f"method 4 host made {len(host4.layers)} layers")
+    check(fused4.assignments == host4.assignments,
+          "method 4 fused and host edge assignments differ")
+    check(fused4.best_layer == host4.best_layer, "best layer differs")
+    check(fused4.most_visited_layer == host4.most_visited_layer,
           "most-visited layer differs")
-    check(fused.most_edges_layer == host.most_edges_layer,
+    check(fused4.most_edges_layer == host4.most_edges_layer,
           "most-edges layer differs")
-    check([l.visits for l in fused.layers.values()]
-          == [l.visits for l in host.layers.values()], "layer visits differ")
-    return {"nodes": sub.num_nodes, "decisions": len(host.assignments),
-            "layers": len(host.layers)}
+    check([l.visits for l in fused4.layers.values()]
+          == [l.visits for l in host4.layers.values()], "layer visits differ")
+    return {"nodes": sub.num_nodes,
+            "m3_decisions": len(host3.assignments),
+            "m3_layers": len(host3.layers), "m3_pose_diff": d3,
+            "m3_schur_pose_diff": ds,
+            "m4_decisions": len(host4.assignments),
+            "m4_layers": len(host4.layers),
+            "m4_visits": [l.visits for l in host4.layers.values()],
+            "m4_best": host4.best_layer,
+            "m4_most_edges": host4.most_edges_layer}
 
 
 # ---------------------------------------------------------------------------
@@ -349,7 +449,8 @@ def main(argv=None) -> int:
             run_phase("intel50_cli", lambda: phase_intel(tmp), clock, card)
         run_phase("m10000_schur", phase_m10000, clock, card)
         run_phase("sphere2500_se3", phase_sphere, clock, card)
-        run_phase("mcts_fused_intel_slice", phase_mcts, clock, card)
+        run_phase("methods34_fused_intel_slice", phase_methods, clock,
+                  card)
     print(json.dumps({"ok": True, "device": bench.device_record()}))
     return 0
 

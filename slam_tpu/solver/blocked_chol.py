@@ -162,9 +162,26 @@ def solve_lower_t(fac: BlockedCholesky, Y: Array) -> Array:
     return jnp.concatenate(xs, axis=-2)
 
 
-def cho_solve_blocked(fac: BlockedCholesky, B: Array) -> Array:
-    """Solve ``L L^T X = B`` (accepts (..., n) or (..., n, k))."""
-    Bp, vec = _pad_rhs(fac, B)
-    X = solve_lower_t(fac, solve_lower(fac, Bp))
+def _unpadded(fac: BlockedCholesky, B: Array, *solves) -> Array:
+    """Apply panel ``solves`` to an unpadded (..., n) or (..., n, k) RHS.
+    The padded block of L is the identity, so padded rows stay zero."""
+    X, vec = _pad_rhs(fac, B)
+    for solve in solves:
+        X = solve(fac, X)
     X = X[..., : fac.n, :]
     return X[..., 0] if vec else X
+
+
+def forward_blocked(fac: BlockedCholesky, B: Array) -> Array:
+    """Solve ``L Y = B`` (accepts (..., n) or (..., n, k))."""
+    return _unpadded(fac, B, solve_lower)
+
+
+def backward_blocked(fac: BlockedCholesky, Y: Array) -> Array:
+    """Solve ``L^T X = Y`` (accepts (..., n) or (..., n, k))."""
+    return _unpadded(fac, Y, solve_lower_t)
+
+
+def cho_solve_blocked(fac: BlockedCholesky, B: Array) -> Array:
+    """Solve ``L L^T X = B`` (accepts (..., n) or (..., n, k))."""
+    return _unpadded(fac, B, solve_lower, solve_lower_t)

@@ -41,11 +41,22 @@ Array = jax.Array
 # seed 42, 50 iters: 1.75 vs 1.52) -- faster-but-worse iterations are not
 # a win for a quality-gated iterations/s metric.
 _PREC = jax.lax.Precision.HIGHEST
-# Interior-elimination strategy threshold: explicit L-inverse (all-matmul)
-# up to this interior dimension, half-substitution triangular pass above.
-# On the H100 the two sides tie within 2% at INTEL (D*ni=201) and M10000
-# (D*ni=909) -- PERF.md.  Module-level so tests can force either branch.
-_INV_MAX_DIM = 1024
+#: Largest interior dimension D*ni at which accelerators default to the
+#: panel-128 blocked Cholesky: it beat XLA's native factorization on the
+#: H100 at D*ni 201 (INTEL, P=16) and 909 (M10000, P=32); larger
+#: interiors are unmeasured (PERF.md).
+BLOCKED_MAX_DIM = 1024
+
+
+def with_default_interiors(cfg, interior_dim: int):
+    """``cfg`` (a ``SolverConfig``) with the default interior
+    factorization for interiors of ``interior_dim`` = D*ni: the panel-128
+    blocked Cholesky on accelerators up to ``BLOCKED_MAX_DIM``; otherwise
+    ``cfg`` as given (the CPU keeps LAPACK's factorization)."""
+    if (cfg.schur_blocked or interior_dim > BLOCKED_MAX_DIM
+            or jax.default_backend() == "cpu"):
+        return cfg
+    return cfg.replace(schur_blocked=True, schur_panel=128)
 
 
 class SchurPartition(NamedTuple):
@@ -536,7 +547,7 @@ def schur_solve(
     edges: EdgeSet,
     part: SchurPartition,
     lam: Array,
-    blocked: bool | None = None,
+    blocked: bool = False,
     panel: int = 16,
     panel_inner: int = 0,
 ) -> Update:
@@ -547,12 +558,9 @@ def schur_solve(
     EdgeSet is only consulted for the padded edge count, so chain-compressed
     (or incidence-free) EdgeSets work.  ``blocked`` selects the
     panel-blocked Cholesky/solves (``blocked_chol.py``) instead of
-    XLA's native ops; exact either way (see default note below).
+    XLA's native ops; exact either way.  Callers pick it through
+    :func:`with_default_interiors`.
     """
-    # Callers choose: global_solve.py enables the blocked path where it
-    # measured faster (small interiors on accelerators, PERF.md).
-    if blocked is None:
-        blocked = False
     _panel = panel
     _sep_blocked = blocked
     E, R, D = system.Ja.shape
@@ -684,66 +692,27 @@ def schur_solve(
     #   x_int = L^-T (g_b - G_F x_sep)
     # One forward-triangular pass over the (D*ns + 1) RHS instead of
     # cho_solve's forward+backward pair: this halves the triangular-solve
-    # volume and turns the F^T Y contraction into the matmul G^T G.
+    # volume and turns the F^T Y contraction into the matmul G^T G.  On
+    # the H100 it beat an explicit L^-1 at every measured interior size,
+    # native and blocked alike (PERF.md).
     if blocked:
         from slam_tpu.solver import blocked_chol as bc
         fac = bc.blocked_cholesky(A_b, panel=_panel, inner=panel_inner)
-        Fb_ext = jnp.concatenate([F_b, b_b[..., None]], axis=-1)
-        use_inv_bc = A_b.shape[-1] <= _INV_MAX_DIM
-        if use_inv_bc:
-            # Same explicit-inverse strategy as the native small-interior
-            # branch, with the panel-blocked forward substitution: one
-            # wide (n_pad-RHS) panel pass builds L^-1, everything after is
-            # matmuls.
-            eye = jnp.broadcast_to(
-                jnp.eye(fac.L.shape[-1], dtype=dtype),
-                fac.L.shape,
-            )
-            Linv_b = bc.solve_lower(fac, eye)[..., : fac.n, : fac.n]
-            G_ext = jnp.einsum("pij,pjk->pik", Linv_b, Fb_ext,
-                               precision=_PREC)
-            G_F, g_b = G_ext[..., :-1], G_ext[..., -1]
-            S = C - expand_S(
-                jnp.einsum("pij,pik->pjk", G_F, G_F, precision=_PREC))
-            rhs_s = b_sep - expand_rhs(
-                jnp.einsum("pij,pi->pj", G_F, g_b, precision=_PREC))
-        else:
-            Yext = bc.cho_solve_blocked(fac, Fb_ext)
-            Y, y = Yext[..., :-1], Yext[..., -1]
-            S = C - expand_S(
-                jnp.einsum("pij,pik->pjk", F_b, Y, precision=_PREC))
-            rhs_s = b_sep - expand_rhs(
-                jnp.einsum("pij,pi->pj", F_b, y, precision=_PREC))
+        forward = _partial(bc.forward_blocked, fac)
+        backward = _partial(bc.backward_blocked, fac)
     else:
         chol = jax.vmap(
             lambda A: jax.scipy.linalg.cho_factor(A, lower=True)[0]
         )(A_b)
-        Fb_ext = jnp.concatenate([F_b, b_b[..., None]], axis=-1)
-        # For SMALL interiors, invert L explicitly: the only triangular op
-        # is the (D*ni)-RHS inversion, and forming G / the
-        # back-substitution become matmuls.  For LARGE interiors the
-        # explicit (D*ni)^2 inverse is memory-bound, so fall back to one
-        # forward-triangular pass over [F | b] (still half of cho_solve's
-        # forward+backward pair).  See _INV_MAX_DIM.
-        use_inv = A_b.shape[-1] <= _INV_MAX_DIM
-        if use_inv:
-            eye = jnp.eye(A_b.shape[-1], dtype=dtype)
-            Linv = jax.vmap(
-                lambda L: jax.scipy.linalg.solve_triangular(
-                    L, eye, lower=True)
-            )(chol)                            # (P, D*ni, D*ni)
-            G_ext = jnp.einsum("pij,pjk->pik", Linv, Fb_ext,
-                               precision=_PREC)
-        else:
-            G_ext = jax.vmap(
-                lambda L, B: jax.scipy.linalg.solve_triangular(
-                    L, B, lower=True)
-            )(chol, Fb_ext)                    # (P, D*ni, D*nsk + 1)
-        G_F, g_b = G_ext[..., :-1], G_ext[..., -1]
-        S = C - expand_S(
-            jnp.einsum("pij,pik->pjk", G_F, G_F, precision=_PREC))
-        rhs_s = b_sep - expand_rhs(
-            jnp.einsum("pij,pi->pj", G_F, g_b, precision=_PREC))
+        forward = _partial(jax.vmap(_partial(
+            jax.scipy.linalg.solve_triangular, lower=True)), chol)
+        backward = _partial(jax.vmap(_partial(
+            jax.scipy.linalg.solve_triangular, lower=True, trans=1)), chol)
+    G_ext = forward(jnp.concatenate([F_b, b_b[..., None]], axis=-1))
+    G_F, g_b = G_ext[..., :-1], G_ext[..., -1]          # (P, D*ni, D*nsk)
+    S = C - expand_S(jnp.einsum("pij,pik->pjk", G_F, G_F, precision=_PREC))
+    rhs_s = b_sep - expand_rhs(
+        jnp.einsum("pij,pi->pj", G_F, g_b, precision=_PREC))
 
     if _sep_blocked:
         from slam_tpu.solver import blocked_chol as bc
@@ -754,25 +723,8 @@ def schur_solve(
         x_sep = jax.scipy.linalg.cho_solve(Ls, rhs_s)  # (D*ns,)
 
     x_sep_loc = gather_sep(x_sep)                      # (P, D*nsk)
-    if blocked:
-        if use_inv_bc:
-            half = g_b - jnp.einsum("pij,pj->pi", G_F, x_sep_loc,
-                                    precision=_PREC)
-            x_int = jnp.einsum("pji,pj->pi", Linv_b, half, precision=_PREC)
-        else:
-            x_int = y - jnp.einsum("pij,pj->pi", Y, x_sep_loc,
-                                   precision=_PREC)
-    else:
-        half = g_b - jnp.einsum("pij,pj->pi", G_F, x_sep_loc,
-                                precision=_PREC)
-        if use_inv:
-            # x_int = L^-T half, as a matmul with the explicit inverse.
-            x_int = jnp.einsum("pji,pj->pi", Linv, half, precision=_PREC)
-        else:
-            x_int = jax.vmap(
-                lambda L, v: jax.scipy.linalg.solve_triangular(
-                    L, v, lower=True, trans=1)
-            )(chol, half)
+    x_int = backward(g_b - jnp.einsum("pij,pj->pi", G_F, x_sep_loc,
+                                      precision=_PREC))
     # Leave the scaled space: x = D^-1/2 x'.
     x_int = x_int * s_int_b
     x_sep = x_sep * s_sep

@@ -51,13 +51,40 @@ def test_phase_intel_tiny(tmp_path):
                             max_iterations=20, dcs_consensus=False,
                             dcs_auto_retry=False)),
         RunLogger(echo=False)).result
+    fixed = _f64_fixed_iters(dirty.canonical_order())
     out = chip_smoke.phase_intel(
         str(tmp_path / "save"), dataset=path, num_outliers=6, seed=3,
         golden=product.poses,
         plain_anchor=(float(plain.initial_cost), float(plain.cost)),
-        plain_iters=20)
+        plain_iters=20, fixed_anchor=fixed, nblocks=2)
     assert out["ate_m"] < 1e-6
     assert 0 < out["plain_iters"] <= 20
+    assert set(out) >= {"dense_cost50", "schur_cost50",
+                        "schur_blocked_cost50"}
+
+
+def _f64_fixed_iters(g):
+    """The f64 dense anchor for ``chip_smoke.fixed_iters_vs_anchor``."""
+    from slam_tpu.solver.lm import lm_fixed_iters
+    from slam_tpu.solver.problem import anchor_first_node, edge_set_from_graph
+
+    edges = edge_set_from_graph(g, dtype=jnp.float64, incidence=True)
+    r = lm_fixed_iters(
+        jnp.asarray(g.poses, jnp.float64),
+        jnp.ones((edges.num_edges,), jnp.float64), edges,
+        anchor_first_node(g.num_nodes, dtype=jnp.float64),
+        SolverConfig(robust="dcs", linear_solver="dense", dtype="float64"),
+        chip_smoke.FIXED_ITERS)
+    return float(r.initial_cost), float(r.cost)
+
+
+def test_fixed_iters_rejects_wrong_anchor():
+    graph, _ = synthetic.circle_se2(n=48, seed=2)
+    g = graph.add_random_outliers(4, seed=1).canonical_order()
+    c0, c = _f64_fixed_iters(g)
+    chip_smoke.fixed_iters_vs_anchor(g, (c0, c), nblocks=2)
+    with pytest.raises(chip_smoke.SmokeError, match="anchor"):
+        chip_smoke.fixed_iters_vs_anchor(g, (c0, 1.01 * c), nblocks=2)
 
 
 def test_phase_m10000_tiny():
@@ -81,8 +108,8 @@ def test_phase_sphere_tiny():
 
 def test_phase_mcts_tiny():
     graph, _ = synthetic.circle_se2(n=64, seed=1)
-    out = chip_smoke.phase_mcts(graph)
-    assert out["decisions"] > 0
+    out = chip_smoke.phase_methods(graph, min_layers=1)
+    assert out["m3_decisions"] > 0 and out["m4_decisions"] > 0
 
 
 def test_phase_four_gpu_on_virtual_devices():

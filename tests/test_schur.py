@@ -143,6 +143,37 @@ def test_blocked_cholesky_matches_scipy():
         )
 
 
+def test_blocked_triangular_solves_match_scipy():
+    """forward_blocked / backward_blocked (the half-substitution passes of
+    the blocked path) solve L Y = B and L^T X = Y like LAPACK, on padded
+    sizes and for vector and matrix right-hand sides."""
+    import scipy.linalg as sl
+
+    from slam_tpu.solver import blocked_chol as bc
+
+    rng = np.random.default_rng(2)
+    for n, p, batch in [(7, 4, (3,)), (40, 16, ())]:
+        A = rng.normal(size=batch + (n, n))
+        A = A @ np.swapaxes(A, -1, -2) + n * np.eye(n)
+        L = np.linalg.cholesky(A)
+        fac = bc.blocked_cholesky(jnp.asarray(A), panel=p)
+        for rhs in (batch + (n, 3), batch + (n,)):
+            B = rng.normal(size=rhs)
+            Bm = B if B.ndim > L.ndim - 1 else B[..., None]
+            fwd = np.stack([sl.solve_triangular(l, b, lower=True) for l, b
+                            in zip(L.reshape(-1, n, n),
+                                   Bm.reshape(-1, n, Bm.shape[-1]))])
+            bwd = np.stack([sl.solve_triangular(l, b, lower=True, trans=1)
+                            for l, b in zip(L.reshape(-1, n, n),
+                                            Bm.reshape(-1, n, Bm.shape[-1]))])
+            np.testing.assert_allclose(
+                np.asarray(bc.forward_blocked(fac, jnp.asarray(B))),
+                fwd.reshape(rhs), atol=1e-12)
+            np.testing.assert_allclose(
+                np.asarray(bc.backward_blocked(fac, jnp.asarray(B))),
+                bwd.reshape(rhs), atol=1e-12)
+
+
 def test_blocked_cholesky_inner_panel_matches_scipy():
     """Two-level blocking (r4 `inner`): recursive panel factorization and
     the matmul-built panel inverses reproduce LAPACK, including when the
@@ -239,15 +270,13 @@ def test_optimized_cuts_partition_valid(problem):
     )
 
 
-def test_schur_half_substitution_branch_matches_dense(problem, monkeypatch):
-    """Force the large-interior (half-substitution) elimination branch --
-    normally only taken when D*ni > 1024 (M10000-class) -- and pin it
-    against the dense solver like the default branch."""
-    from slam_tpu.solver import schur as schur_mod
+def test_schur_half_substitution_branch_matches_dense(problem):
+    """The half-substitution interior elimination (one forward-triangular
+    pass over [F | b], one backward pass for the interiors) over several
+    LM iterations, pinned against the dense solver."""
     from slam_tpu.solver.lm import lm_solve
     from slam_tpu.config import SolverConfig
 
-    monkeypatch.setattr(schur_mod, "_INV_MAX_DIM", 0)
     graph, edges, free, poses0, sw0 = problem
     part = build_partition(graph.edges_ij, graph.num_nodes, 4,
                            dtype=jnp.float64)
@@ -255,6 +284,28 @@ def test_schur_half_substitution_branch_matches_dense(problem, monkeypatch):
                          dtype="float64",
                          max_iterations=6, function_tolerance=0.0)
     cfg_s = cfg_d.replace(linear_solver="schur")
+    res_d = lm_solve(poses0, sw0, edges, free, cfg_d)
+    res_s = lm_solve(poses0, sw0, edges, free, cfg_s, partition=part)
+    np.testing.assert_allclose(
+        np.asarray(res_s.poses), np.asarray(res_d.poses), atol=1e-9
+    )
+
+
+def test_schur_blocked_half_substitution_matches_dense(problem):
+    """The blocked-Cholesky path's half-substitution (panel forward pass
+    over [F | b], panel backward pass for the interiors) over several LM
+    iterations, pinned against the dense solver."""
+    from slam_tpu.solver.lm import lm_solve
+    from slam_tpu.config import SolverConfig
+
+    graph, edges, free, poses0, sw0 = problem
+    part = build_partition(graph.edges_ij, graph.num_nodes, 4,
+                           dtype=jnp.float64)
+    cfg_d = SolverConfig(robust="dcs", linear_solver="dense",
+                         dtype="float64",
+                         max_iterations=6, function_tolerance=0.0)
+    cfg_s = cfg_d.replace(linear_solver="schur", schur_blocked=True,
+                          schur_panel=16)
     res_d = lm_solve(poses0, sw0, edges, free, cfg_d)
     res_s = lm_solve(poses0, sw0, edges, free, cfg_s, partition=part)
     np.testing.assert_allclose(
@@ -313,3 +364,15 @@ def test_graph_partition_disconnected_graph():
     sizes = np.bincount(nb, minlength=4)
     assert sizes.min() > 0
     assert sizes.max() <= int(np.ceil(64 / 4 * 1.5))
+
+
+def test_default_interiors_keep_lapack_on_cpu():
+    """The blocked-interior default is for accelerators only, up to
+    ``BLOCKED_MAX_DIM``; an explicit request is kept as given."""
+    from slam_tpu.config import SolverConfig
+    from slam_tpu.solver import schur as schur_mod
+
+    cfg = SolverConfig(linear_solver="schur")
+    assert schur_mod.with_default_interiors(cfg, 201) is cfg  # CPU backend
+    asked = cfg.replace(schur_blocked=True, schur_panel=32)
+    assert schur_mod.with_default_interiors(asked, 4096) is asked
